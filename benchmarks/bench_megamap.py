@@ -3,13 +3,12 @@
 refinement on a 50,000-landmark map. Prints ONE JSON line including the
 single end-to-end wall-clock (synthesize -> pose graph -> Schur GN).
 
-Iteration budget (r04): GN=12 / CG=64. The r01-r03 record attributed the
-0.158-vs-0.136 m pose-ATE gap to f32 precision; the r04 CPU sweep showed
-it was an ITERATION DEFICIT all along — f64 at the old gn4/cg32 budget
-lands on the same 0.1582, while f32 at gn12/cg64 reaches 0.1242 and f64
-at the same budget 0.1241 (diff 1e-4: f32 arithmetic costs nothing here).
-The budget knee: gn4/cg32 0.158, gn8/cg32 0.153, gn4/cg64 0.149,
-gn8/cg64 0.136, gn12/cg64 0.124 = the f64 floor."""
+Iteration budget: GN=12 / CG=64. A CPU sweep showed the pose-ATE gap
+once blamed on f32 precision was an ITERATION DEFICIT — f64 at a gn4/cg32
+budget lands on the same 0.1582 m as f32, while f32 at gn12/cg64 reaches
+0.1242 m and f64 at the same budget 0.1241 m (f32 arithmetic costs
+nothing here). The budget knee on the CPU: gn4/cg32 0.158, gn8/cg32
+0.153, gn4/cg64 0.149, gn8/cg64 0.136, gn12/cg64 0.124 = the f64 floor."""
 
 import json
 import os
@@ -23,9 +22,9 @@ import jax.numpy as jnp
 
 
 def main():
-    from shermbot_navigation_tpu.models import pose_graph as pg
-    from shermbot_navigation_tpu.parallel import megamap, schur_dist
-    from shermbot_navigation_tpu.parallel.mesh import make_mesh
+    from shermbot_navigation.models import pose_graph as pg
+    from shermbot_navigation.parallel import megamap, schur_dist
+    from shermbot_navigation.parallel.mesh import make_mesh
     import numpy as np
 
     N = int(os.environ.get("MEGAMAP_N", "50000"))
@@ -54,10 +53,10 @@ def main():
         mesh, T=T, N=N, M=part.obs_t.shape[0], cg_iters=CG_ITERS,
         gn_steps=GN_STEPS)
     out = step(part)          # compile + run
-    float(out.poses[0, 0])
+    jax.block_until_ready(out)
     t0 = time.time()
     out = step(part)
-    float(out.poses[0, 0])
+    jax.block_until_ready(out)
     t_stage2 = time.time() - t0
     t_gn = t_stage2 / GN_STEPS
 

@@ -1,5 +1,5 @@
 // C API over the native host engine (engine.h), consumed from Python via
-// ctypes (shermbot_navigation_tpu/native). Exposes:
+// ctypes (shermbot_navigation/native). Exposes:
 //   - full pipeline instances (create/tick/poses/state/destroy)
 //   - the standalone perception stage (scan -> landmark detections)
 // All arrays are caller-allocated doubles; all functions are thread-safe per

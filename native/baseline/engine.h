@@ -1,4 +1,4 @@
-// Native host engine for shermbot_navigation_tpu.
+// Native host engine for shermbot_navigation.
 //
 // This is the C++ runtime component of the framework: a faithful
 // reimplementation of the reference SLAM math (sziselman/Shermbot-Navigation,
@@ -7,12 +7,12 @@
 //   (a) the measured performance/trajectory baseline (BASELINE.md: "the C++
 //       baseline must be measured, not quoted"),
 //   (b) an in-process host serving engine (capi.cpp + ctypes bindings in
-//       shermbot_navigation_tpu/native) for latency-critical single-robot
-//       deployment where a TPU round-trip is not available, and
-//   (c) the oracle the JAX/TPU engine is diffed against in tests.
+//       shermbot_navigation/native) for latency-critical single-robot
+//       deployment where a device round-trip is not available, and
+//   (c) the oracle the JAX engine is diffed against in tests.
 //
 // Independent reimplementation — NOT a copy of the reference sources, and NOT
-// the TPU engine (which replaces the dense products with rank-2 updates).
+// the JAX engine (which replaces the dense products with rank-2 updates).
 
 #ifndef SHERMBOT_NATIVE_ENGINE_H_
 #define SHERMBOT_NATIVE_ENGINE_H_

@@ -45,9 +45,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf  # noqa: E402
-from shermbot_navigation_tpu.models import schur  # noqa: E402
-from shermbot_navigation_tpu.parallel import (  # noqa: E402
+from shermbot_navigation.models import ekf_slam as ekf  # noqa: E402
+from shermbot_navigation.models import schur  # noqa: E402
+from shermbot_navigation.parallel import (  # noqa: E402
     blocked_ekf, mesh as mesh_lib, schur_dist)
 
 N = 16   # landmark capacity (2 slots per map shard at map=8)
@@ -121,7 +121,7 @@ def mode_ckpt(pid, phase, save_dir):
     Uses the production deferred blocked step."""
     import time
 
-    from shermbot_navigation_tpu.pipeline import checkpoint
+    from shermbot_navigation.pipeline import checkpoint
 
     dtype = jnp.float64
     cfg = ekf.EKFConfig(num_landmarks=N)
@@ -161,7 +161,7 @@ def mode_bign(pid):
     O(MN) HSbuf/CRbuf all_gathers cross the process boundary at
     representative sizes (VERDICT r02 weak item 5), checked shard-for-shard
     against a process-local execution of the same program."""
-    from shermbot_navigation_tpu.parallel import bigmap
+    from shermbot_navigation.parallel import bigmap
 
     dtype = jnp.float64
     N2, M2, T2 = 2048, 8, 3

@@ -8,17 +8,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.ops import diff_drive as dd
-from shermbot_navigation_tpu.pipeline import checkpoint, odometry
-from shermbot_navigation_tpu.pipeline.config import ScenarioConfig, from_yaml, get_scenario
-from shermbot_navigation_tpu.utils.robot import TURTLEBOT3_BURGER
-from shermbot_navigation_tpu.utils.tracing import MetricsLog, time_fn
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.ops import diff_drive as dd
+from shermbot_navigation.pipeline import checkpoint, odometry
+from shermbot_navigation.pipeline.config import ScenarioConfig, from_yaml, get_scenario
+from shermbot_navigation.utils.robot import TURTLEBOT3_BURGER
+from shermbot_navigation.utils.tracing import MetricsLog, time_fn
 
 
 class TestCheckpoint:
     def test_roundtrip_pipeline_state(self, tmp_path):
-        from shermbot_navigation_tpu.pipeline.driver import init_pipeline
+        from shermbot_navigation.pipeline.driver import init_pipeline
         scn = get_scenario("stock6")
         st = init_pipeline(scn, jnp.float32)
         path = str(tmp_path / "ckpt.npz")
@@ -31,7 +31,7 @@ class TestCheckpoint:
 
     def test_resume_determinism(self, tmp_path):
         """run 20 ticks straight == run 10, checkpoint, load, run 10."""
-        from shermbot_navigation_tpu.pipeline.driver import (
+        from shermbot_navigation.pipeline.driver import (
             init_pipeline, slam_tick)
         scn = dataclasses.replace(get_scenario("stock6"), steps=20)
         params = scn.world_params(jnp.float32)
@@ -102,7 +102,7 @@ class TestConfig:
 
 class TestFaultInjection:
     def test_sensor_dropout(self):
-        from shermbot_navigation_tpu.sim import tube_world as tw
+        from shermbot_navigation.sim import tube_world as tw
         params = tw.default_params(dtype=jnp.float64, sensor_dropout=1.0,
                                    max_range=10.0)
         cfg = tw.WorldConfig()
@@ -111,7 +111,7 @@ class TestFaultInjection:
         assert not bool(obs.fake_sensor_valid.any())
 
     def test_scan_dropout(self):
-        from shermbot_navigation_tpu.sim import tube_world as tw
+        from shermbot_navigation.sim import tube_world as tw
         params = tw.default_params(dtype=jnp.float64, scan_dropout=1.0)
         cfg = tw.WorldConfig()
         st = tw.init_state(params, jnp.float64)
@@ -141,8 +141,8 @@ class TestTracing:
 
 class TestViz:
     def test_plot_and_csv(self, tmp_path):
-        from shermbot_navigation_tpu.pipeline import viz
-        from shermbot_navigation_tpu.pipeline.driver import TickOutput
+        from shermbot_navigation.pipeline import viz
+        from shermbot_navigation.pipeline.driver import TickOutput
         T = 10
         outs = TickOutput(
             true_pose=jnp.zeros((T, 3)), odom_pose=jnp.ones((T, 3)) * 0.1,
@@ -157,7 +157,7 @@ class TestViz:
         assert len(open(csvp).readlines()) == T + 1
 
     def test_scan_figure(self, tmp_path):
-        from shermbot_navigation_tpu.pipeline import viz
+        from shermbot_navigation.pipeline import viz
         png = str(tmp_path / "scan.png")
         scan = np.full(360, 2.0)
         scan[10:20] = 0.5
@@ -170,7 +170,7 @@ class TestTurtleRect:
     def test_traces_rectangle(self):
         """Closed-loop: drive the fake turtle with the FSM controller and
         check it visits all four corners."""
-        from shermbot_navigation_tpu.sim import fake_turtle, turtle_rect
+        from shermbot_navigation.sim import fake_turtle, turtle_rect
         dtype = jnp.float64
         p = TURTLEBOT3_BURGER.diff_drive_params(dtype)
         rp = turtle_rect.RectParams(

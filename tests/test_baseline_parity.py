@@ -41,9 +41,9 @@ def run_cpp(baseline_bin, scenario, tmp_path):
 
 
 def test_loop5_trajectory_parity(baseline_bin, tmp_path):
-    from shermbot_navigation_tpu.pipeline import metrics
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline import metrics
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
     import dataclasses
 
     rows, stdout = run_cpp(baseline_bin, "loop5_known", tmp_path)
@@ -79,8 +79,8 @@ def test_unknown_association_parity(baseline_bin, tmp_path):
     # mode its draws collapse to means (slip eta = 0.95!) — the slip quirk
     # stays active identically on both sides.
     import dataclasses
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
 
     rows, stdout = run_cpp(baseline_bin, "course12_noisy", tmp_path)
     cpp_slam = np.array([[float(r["slam_x"]), float(r["slam_y"])]
@@ -109,8 +109,8 @@ def test_lidar_pipeline_parity(baseline_bin, tmp_path):
     discrete, so agreement here pins clustering boundaries, classifier
     thresholds, fit algebra, and gating all at once."""
     import dataclasses
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
 
     rows, stdout = run_cpp(baseline_bin, "lidar20_full", tmp_path)
     cpp_true = np.array([[float(r["true_x"]), float(r["true_y"])]
@@ -135,9 +135,9 @@ def test_tuned_mode_beats_odometry(baseline_bin, tmp_path):
     physical slip): SLAM must beat drifting odometry by a wide margin —
     the 'don't stop at parity' check."""
     import dataclasses
-    from shermbot_navigation_tpu.pipeline import metrics
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline import metrics
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
 
     scn = dataclasses.replace(get_scenario("lidar20_tuned"), steps=800)
     outs = run_scenario(scn, jax.random.PRNGKey(0))

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.models.ekf_slam import EKFConfig
-from shermbot_navigation_tpu.parallel import bigmap, mesh as mesh_lib
+from shermbot_navigation.models.ekf_slam import EKFConfig
+from shermbot_navigation.parallel import bigmap, mesh as mesh_lib
 
 
 def test_bigmap_runs_and_converges():

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.parallel import blocked_ekf, mesh as mesh_lib
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.parallel import blocked_ekf, mesh as mesh_lib
 
 N = 8          # landmark capacity (divisible by the map axis)
 M = 3          # measurements per tick

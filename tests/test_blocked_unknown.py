@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.parallel import blocked_ekf, mesh as mesh_lib
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.parallel import blocked_ekf, mesh as mesh_lib
 
 from test_blocked_ekf import dense_to_blocked
 
@@ -72,14 +72,14 @@ def test_unknown_runner_sweeps_map():
     """The config-4 unknown-association runner (bigmap.make_unknown_runner)
     initializes most of the map through the distributed first-hit gate and
     stays finite — ties the sharded association to the sweep workload
-    end-to-end (the TPU bench path)."""
+    end-to-end (the config-4 bench path)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import NamedSharding
-    from shermbot_navigation_tpu.models.ekf_slam import EKFConfig
-    from shermbot_navigation_tpu.parallel import bigmap, blocked_ekf
-    from shermbot_navigation_tpu.parallel.mesh import make_mesh
+    from shermbot_navigation.models.ekf_slam import EKFConfig
+    from shermbot_navigation.parallel import bigmap, blocked_ekf
+    from shermbot_navigation.parallel.mesh import make_mesh
 
     N, M, T = 256, 8, 40
     mesh = make_mesh(jax.devices()[:2], data=1, map_=2)

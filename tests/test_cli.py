@@ -21,7 +21,7 @@ import re
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.pipeline import cli
+from shermbot_navigation.pipeline import cli
 
 INPUT = "90 0 1\n90 1 0\n1 1\na\n1 1 1\na\n"
 

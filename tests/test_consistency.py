@@ -22,8 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.pipeline import metrics
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.pipeline import metrics
 
 Q_TRUE = np.diag([1e-6, 4e-6, 4e-6])
 R_TRUE = np.diag([1e-4, 1e-4])

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.ops import diff_drive as dd
-from shermbot_navigation_tpu.ops import se2
+from shermbot_navigation.ops import diff_drive as dd
+from shermbot_navigation.ops import se2
 
 PI = se2.PI
 

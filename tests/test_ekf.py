@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.ops import se2
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.ops import se2
 
 CFG64 = ekf.EKFConfig(num_landmarks=6, analytic_init=False, symmetrize=False)
 Q3 = jnp.diag(jnp.array([0.1, 0.1, 0.1], jnp.float64))   # ref slam_params.yaml

@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.models import ekf_batch, ekf_slam as ekf
+from shermbot_navigation.models import ekf_batch, ekf_slam as ekf
 
 N = 8
 B = 16
@@ -141,10 +141,9 @@ def test_gated_off_world_stays_finite_f32():
     """A gated-OFF world whose slot is an unseen INT_MAX-prior landmark
     sitting ~on top of the robot produces an f32-OVERFLOWING psi
     (det = inf - inf = NaN) in the unused update branch. The select form
-    must discard that junk. (Pin for the r05 fused-gating negative,
-    r05_fused_step_ab.json: gating the update by MULTIPLICATION
-    propagated the NaN*0; the branch-select form is the production
-    lowering.)"""
+    must discard that junk. (Pin for the fused-gating negative, BENCH_NOTES
+    pathology 17: gating the update by MULTIPLICATION propagated the
+    NaN*0; the branch-select form is the production lowering.)"""
     cfg = ekf.EKFConfig(num_landmarks=2)
     B = 2
     st = ekf_batch.init(cfg, B, dtype=jnp.float32)
@@ -166,8 +165,8 @@ def test_driver_lanes_matches_vmapped(scenario):
     """End-to-end through the production wiring: run_scenario_batch_lanes
     == run_scenario_batch on the same keys (f64 so association decisions
     cannot flip on layout-order ulps)."""
-    from shermbot_navigation_tpu.pipeline import driver
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline import driver
+    from shermbot_navigation.pipeline.config import get_scenario
 
     scn = get_scenario(scenario)
     keys = jax.random.split(jax.random.PRNGKey(7), 4)

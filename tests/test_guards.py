@@ -12,13 +12,13 @@ import pytest
 from jax.experimental import checkify
 from jax.sharding import NamedSharding
 
-from shermbot_navigation_tpu.models.ekf_slam import EKFConfig
-from shermbot_navigation_tpu.parallel import bigmap, blocked_ekf
-from shermbot_navigation_tpu.parallel.mesh import make_mesh
-from shermbot_navigation_tpu.pipeline import metrics
-from shermbot_navigation_tpu.pipeline.config import get_scenario
-from shermbot_navigation_tpu.pipeline.driver import run_scenario
-from shermbot_navigation_tpu.utils import guards
+from shermbot_navigation.models.ekf_slam import EKFConfig
+from shermbot_navigation.parallel import bigmap, blocked_ekf
+from shermbot_navigation.parallel.mesh import make_mesh
+from shermbot_navigation.pipeline import metrics
+from shermbot_navigation.pipeline.config import get_scenario
+from shermbot_navigation.pipeline.driver import run_scenario
+from shermbot_navigation.utils import guards
 
 
 def test_checked_scenario_clean_run_matches_unchecked():

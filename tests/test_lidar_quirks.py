@@ -25,8 +25,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.native import host
-from shermbot_navigation_tpu.sim import tube_world as tw
+from shermbot_navigation.native import host
+from shermbot_navigation.sim import tube_world as tw
 
 TUBE_RAD = 0.0381
 SENTINEL = 2.0  # scan_max (1.0) + 1
@@ -128,8 +128,8 @@ def test_quirks_pipeline_parity():
     the 0.01 first-hit gate and the filter chaotically amplifies last-ulp
     differences (~6 mm rms over 400 ticks, measured). A regressed quirk on
     either side measures 0.30 m rms and a landmark-count mismatch."""
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
 
     scn = dataclasses.replace(
         get_scenario("lidar20_full"), lidar_quirks=True, steps=400,
@@ -161,10 +161,10 @@ def test_quirks_per_tick_detection_sets():
     rollout is deterministic (no twist/scan noise, fixed slip), so both
     engines see 1e-7-identical true poses and each tick's detection sets
     can be recomputed from the recorded pose on each side independently."""
-    from shermbot_navigation_tpu.ops.landmark_detection import (
+    from shermbot_navigation.ops.landmark_detection import (
         detect_landmarks as jax_detect)
-    from shermbot_navigation_tpu.pipeline.config import get_scenario
-    from shermbot_navigation_tpu.pipeline.driver import run_scenario
+    from shermbot_navigation.pipeline.config import get_scenario
+    from shermbot_navigation.pipeline.driver import run_scenario
 
     scn = dataclasses.replace(
         get_scenario("lidar20_full"), lidar_quirks=True, steps=50,

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.parallel import megamap, mesh as mesh_lib
+from shermbot_navigation.parallel import megamap, mesh as mesh_lib
 
 
 def test_megamap_two_stage_reduces_error():
@@ -45,7 +45,7 @@ def test_midscale_quality_pin():
     floor (millimeters here). Catches regressions in gauge projection,
     stage handoff, and GN convergence that tiny shapes can't see."""
     import numpy as np
-    from shermbot_navigation_tpu.parallel import megamap
+    from shermbot_navigation.parallel import megamap
 
     prob, out = megamap.run_megamap(N=512, T=96, obs_per_pose=6,
                                     gn_iters=4)
@@ -79,10 +79,10 @@ def test_refinement_checkpoint_resume():
     multi-host elastic-recovery story from SURVEY.md section 5)."""
     import numpy as np
     import jax
-    from shermbot_navigation_tpu.models import pose_graph as pg
-    from shermbot_navigation_tpu.parallel import megamap, schur_dist
-    from shermbot_navigation_tpu.parallel.mesh import make_mesh
-    from shermbot_navigation_tpu.pipeline import checkpoint
+    from shermbot_navigation.models import pose_graph as pg
+    from shermbot_navigation.parallel import megamap, schur_dist
+    from shermbot_navigation.parallel.mesh import make_mesh
+    from shermbot_navigation.pipeline import checkpoint
     import tempfile, os
 
     mesh = make_mesh(jax.devices()[:2], data=1, map_=2)

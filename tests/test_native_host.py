@@ -1,6 +1,6 @@
 """The native C++ host engine (ctypes bindings) vs the CLI and the JAX engine.
 
-The in-process engine (shermbot_navigation_tpu.native) must be the same
+The in-process engine (shermbot_navigation.native) must be the same
 program as the ``baseline`` CLI (shared engine.cpp) and must agree with the
 JAX pipeline under PARITY.md semantics — these tests pin the bindings, the
 refactor, and the cross-engine contracts.
@@ -13,7 +13,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.native import (HostEngine, detect_landmarks,
+from shermbot_navigation.native import (HostEngine, detect_landmarks,
                                             ensure_built, simulate_lidar)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,7 +95,7 @@ class TestCrossEnginePerception:
         lidar at the same pose."""
         import jax
         import jax.numpy as jnp
-        from shermbot_navigation_tpu.sim import tube_world
+        from shermbot_navigation.sim import tube_world
 
         tubes = np.array([[0.6, 0.1], [-0.3, 0.5], [0.0, -0.7]])
         pose = (0.3, 0.05, -0.1)
@@ -113,7 +113,7 @@ class TestCrossEnginePerception:
         """scan -> detections agree across engines (discrete decisions +
         fitted centers)."""
         import jax.numpy as jnp
-        from shermbot_navigation_tpu.ops.landmark_detection import (
+        from shermbot_navigation.ops.landmark_detection import (
             detect_landmarks as jax_detect)
 
         tubes = np.array([[0.6, 0.1], [-0.3, 0.5], [0.0, -0.7]])

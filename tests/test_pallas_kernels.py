@@ -1,82 +1,16 @@
-"""Pallas kernels vs their XLA oracles (interpret mode on CPU; the compiled
-TPU path is exercised by the benchmarks)."""
+"""The Triton grid-pass kernel vs its XLA oracle (interpret mode on CPU),
+the oracle vs a dense f64 rank-2M reference, and the kernels' routing.
+The compiled kernels are checked on the card by ``chip_smoke.py`` and by
+the ``gpu``-marked test below."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.ops.pallas.cov_update import (
-    fused_kalman_update, reference_kalman_update)
-from shermbot_navigation_tpu.ops.pallas.circle_moments import (
-    circle_moments, reference_circle_moments)
-from shermbot_navigation_tpu.ops.pallas.grid_update import (
-    fused_grid_update, reference_grid_update)
-
-
-class TestFusedKalmanUpdate:
-    @pytest.mark.parametrize("D,tile", [(256, 128), (512, 256)])
-    def test_matches_reference(self, D, tile):
-        rng = np.random.default_rng(0)
-        A = rng.normal(size=(D, D)).astype(np.float32) * 0.1
-        cov = jnp.asarray(A @ A.T + np.eye(D, dtype=np.float32))
-        sht = jnp.asarray(rng.normal(size=(D, 2)).astype(np.float32))
-        psi = jnp.asarray(
-            (lambda m: m @ m.T + np.eye(2))(
-                rng.normal(size=(2, 2))).astype(np.float32))
-        psi_inv = jnp.linalg.inv(psi)
-        dz = jnp.asarray(rng.normal(size=(2,)).astype(np.float32))
-        mean = jnp.asarray(rng.normal(size=(D,)).astype(np.float32))
-
-        got_cov, got_mean = fused_kalman_update(
-            cov, sht, psi_inv, dz, mean, tile=tile, interpret=True)
-        want_cov, want_mean = reference_kalman_update(
-            cov, sht, psi_inv, dz, mean)
-        np.testing.assert_allclose(got_cov, want_cov, rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(got_mean, want_mean, rtol=1e-5, atol=1e-5)
-
-
-class TestCircleMoments:
-    def test_matches_reference(self):
-        rng = np.random.default_rng(1)
-        C, P = 16, 64
-        pts = rng.normal(size=(C, P, 2)).astype(np.float32)
-        counts = rng.integers(4, P, C)
-        # zero the padded rows like the clustering stage does
-        for c in range(C):
-            pts[c, counts[c]:] = 0.0
-        got_M, got_c, got_z = circle_moments(
-            jnp.asarray(pts), jnp.asarray(counts), interpret=True)
-        want_M, want_c, want_z = reference_circle_moments(
-            jnp.asarray(pts), jnp.asarray(counts))
-        np.testing.assert_allclose(got_M, want_M, rtol=1e-5, atol=1e-4)
-        np.testing.assert_allclose(got_c, want_c, rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(got_z, want_z, rtol=1e-5, atol=1e-6)
-
-    def test_feeds_fit(self):
-        """Moments produced by the kernel reproduce the golden circle fit."""
-        pts6 = np.zeros((8, 8, 2), np.float32)
-        pts6[0, :6] = [[1, 7], [2, 6], [5, 8], [7, 7], [9, 5], [3, 7]]
-        counts = np.array([6, 0, 0, 0, 0, 0, 0, 0])
-        M, cent, zbar = circle_moments(
-            jnp.asarray(pts6), jnp.asarray(counts), interpret=True)
-        # run the eigen-chain from ops.circle_fit on the kernel's moments
-        lam, V = jnp.linalg.eigh(M[0])
-        s = jnp.sqrt(jnp.maximum(lam, 0.0))
-        Y = (V * s[None, :]) @ V.T
-        Hinv = jnp.array([[0.0, 0.0, 0.0, 0.5],
-                          [0.0, 1.0, 0.0, 0.0],
-                          [0.0, 0.0, 1.0, 0.0],
-                          [0.5, 0.0, 0.0, -2.0 * float(zbar[0])]],
-                         jnp.float32)
-        Q = Y @ Hinv @ Y
-        eq, EV = jnp.linalg.eigh(Q)
-        k = jnp.argmin(jnp.where(eq > 0, eq, jnp.inf))
-        A = jnp.linalg.solve(Y, EV[:, k])
-        a = -A[1] / (2 * A[0]) + cent[0, 0]
-        b = -A[2] / (2 * A[0]) + cent[0, 1]
-        np.testing.assert_allclose([float(a), float(b)],
-                                   [4.615482, 2.807354], atol=1e-3)
+from shermbot_navigation.ops.pallas.grid_update import (
+    fused_grid_update, grid_shapes_supported)
+from shermbot_navigation.parallel.blocked_ekf import reference_grid_update
 
 
 class TestFusedGridUpdate:
@@ -101,7 +35,12 @@ class TestFusedGridUpdate:
                 jnp.asarray(crow), jnp.asarray(ccol),
                 jnp.asarray(rowt), jnp.asarray(colt))
 
-    @pytest.mark.parametrize("Nl,N,M", [(64, 64, 4), (32, 128, 8)])
+    # includes planes of several row and column tiles (TILE_ROWS=16,
+    # TILE_COLS=512), M < 8 (K padded to 16) and M = 1
+    @pytest.mark.parametrize("Nl,N,M", [(64, 64, 4), (32, 128, 8),
+                                        (16, 32, 3), (128, 256, 1),
+                                        (32, 32, 16), (64, 1024, 5),
+                                        (16, 2048, 8), (256, 512, 2)])
     def test_matches_reference(self, Nl, N, M):
         args = self._inputs(Nl, N, M)
         got = fused_grid_update(*args, interpret=True)
@@ -119,14 +58,135 @@ class TestFusedGridUpdate:
                                 precision=jax.lax.Precision.HIGHEST)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("Nl,N", [(48, 64), (64, 96), (8, 64)])
+    def test_unsupported_planes_raise(self, Nl, N):
+        """Non-power-of-two or sub-16 planes are refused, never padded or
+        sent elsewhere silently."""
+        assert not grid_shapes_supported(Nl, N)
+        with pytest.raises(ValueError, match="power-of-two"):
+            fused_grid_update(*self._inputs(Nl, N, 2), interpret=True)
+
+
+class TestBatchedAndShardedGridKernel:
+    """The grid kernel under vmap (several robots per 'data' shard) and
+    under shard_map with the map split (the kernel per map shard, as the
+    multi-device dry run compiles it on GPUs) equals the XLA schedule."""
+
+    @pytest.mark.parametrize("B,data,map_", [(2, 1, 1), (1, 1, 2),
+                                             (2, 2, 2)])
+    def test_matches_xla(self, B, data, map_):
+        from jax.sharding import NamedSharding
+        from shermbot_navigation.models import ekf_slam as ekf
+        from shermbot_navigation.parallel import (
+            blocked_ekf, mesh as mesh_lib)
+
+        N, M, T = 64, 3, 2
+        dtype = jnp.float32
+        cfg = ekf.EKFConfig(num_landmarks=N)
+        Q = jnp.diag(jnp.array([1e-4] * 3, dtype))
+        R = jnp.diag(jnp.array([1e-3] * 2, dtype))
+        rng = np.random.default_rng(11)
+        tw = jnp.asarray(rng.uniform(-0.05, 0.05, (T, B, 3)), dtype)
+        zs = jnp.asarray(np.stack([rng.uniform(0.3, 1.0, (T, B, M)),
+                                   rng.uniform(-3, 3, (T, B, M))], -1), dtype)
+        valid = jnp.ones((B, M), bool)
+        ids = jnp.asarray([[[(t * M + k) % N for k in range(M)]] * B
+                           for t in range(T)], jnp.int32)
+        mesh = mesh_lib.make_mesh(jax.devices()[:data * map_], data=data)
+        specs = blocked_ekf.state_sharding(mesh)
+        outs = []
+        for kw in ({}, {"grid_kernel": True, "kernel_interpret": True}):
+            step = blocked_ekf.make_sharded_deferred_step(cfg, mesh, B, M,
+                                                          **kw)
+            st = jax.tree_util.tree_map(
+                lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
+                blocked_ekf.init(cfg, B, dtype=dtype), specs)
+            for t in range(T):
+                st = step(st, tw[t], zs[t], valid, ids[t], Q, R)
+            outs.append(jax.tree_util.tree_map(np.asarray, st))
+        a, b = outs
+        np.testing.assert_array_equal(a.n_seen, b.n_seen)
+        np.testing.assert_allclose(a.mean_m, b.mean_m, atol=1e-6)
+        np.testing.assert_allclose(a.cov_mm, b.cov_mm, atol=1e-5)
+
+
+class TestGridKernelLowering:
+    """The Triton lowering of the grid kernel (never run by the
+    interpreter), checked on the CPU by lowering for 'cuda'."""
+
+    @pytest.mark.parametrize("Nl,N,M", [(64, 64, 4), (16, 2048, 8),
+                                        (2048, 2048, 8)])
+    def test_lowers_for_cuda(self, Nl, N, M):
+        f32 = jnp.float32
+        args = (jnp.zeros((2, 2, Nl, N), f32), jnp.zeros((2, Nl, 2 * M), f32),
+                jnp.zeros((2, 2 * M, N), f32), jnp.zeros((2, 2, M, N), f32),
+                jnp.zeros((2, 2, Nl, M), f32), jnp.zeros(Nl, jnp.int32),
+                jnp.zeros(N, jnp.int32))
+        text = jax.jit(fused_grid_update).trace(*args).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "grid_update" in text
+
+
+class TestReferenceGridUpdate:
+    """``reference_grid_update`` (the XLA schedule on CPU and multi-shard
+    meshes) against a dense f64 oracle: replay the tick's ops in order on
+    the full (2Nl, 2N) block — init row/column overwrites, last op wins —
+    and subtract each LATER update's rank-2 outer product."""
+
+    @pytest.mark.parametrize("Nl,N,M,seed", [(8, 8, 3, 0), (6, 10, 4, 1)])
+    def test_matches_dense_f64_replay(self, Nl, N, M, seed):
+        rng = np.random.default_rng(seed)
+        cov = rng.normal(size=(2, 2, Nl, N))
+        K = rng.normal(size=(M, 2, 2, Nl))     # K[i, p, c, n]
+        HS = rng.normal(size=(M, 2, 2, N))     # HS[i, r, c, m]
+        cross = rng.normal(size=(M, 2, 2, N))  # init strip comps
+        kinds = rng.choice([1, 2], size=M)     # 1 update, 2 init
+        slots = rng.choice(min(Nl, N), size=M, replace=False)
+        # dense oracle, op by op
+        dense = cov.copy()
+        for i in range(M):
+            if kinds[i] == 2:
+                g = slots[i]
+                dense[:, :, g, :] = cross[i]                 # row g
+                dense[:, :, :, g] = np.transpose(
+                    cross[i][:, :, :Nl], (1, 0, 2))          # column g
+                dense[:, :, g, g] = cross[i][:, :, g]
+            else:
+                dense -= np.einsum("pcn,rcm->prnm", K[i], HS[i])
+        # the deferred form's operands
+        iota = np.arange(M)
+        is_init = kinds == 2
+        rowt = np.array([max([i for i in range(M) if is_init[i]
+                              and slots[i] == n], default=-1)
+                         for n in range(Nl)], np.int32)
+        colt = np.array([max([i for i in range(M) if is_init[i]
+                              and slots[i] == m], default=-1)
+                         for m in range(N)], np.int32)
+        upd = (kinds == 1)[:, None]
+        Kmask = K.reshape(M, 4, Nl) * (upd & (iota[:, None] > rowt[None]))[
+            :, None, :]
+        HSmask = HS.reshape(M, 4, N) * (upd & (iota[:, None] > colt[None]))[
+            :, None, :]
+        A = np.transpose(Kmask.reshape(M, 2, 2, Nl),
+                         (1, 3, 0, 2)).reshape(2, Nl, 2 * M)
+        B = np.transpose(HSmask.reshape(M, 2, 2, N),
+                         (1, 0, 2, 3)).reshape(2, 2 * M, N)
+        crow = np.transpose(cross, (1, 2, 0, 3))             # (2,2,M,N)
+        ccol = np.transpose(cross[:, :, :, :Nl], (2, 1, 3, 0))
+        got = reference_grid_update(
+            jnp.asarray(cov), jnp.asarray(A), jnp.asarray(B),
+            jnp.asarray(crow), jnp.asarray(ccol), jnp.asarray(rowt),
+            jnp.asarray(colt))
+        np.testing.assert_allclose(np.asarray(got), dense, atol=1e-12)
+
 
 class TestDeferredGridKernelPath:
     """The deferred sharded step with grid_kernel=True (interpret mode)
     equals the XLA deferred step at f32 — the production config-4 path."""
 
     def test_known_association_end_to_end(self):
-        from shermbot_navigation_tpu.models import ekf_slam as ekf
-        from shermbot_navigation_tpu.parallel import (
+        from shermbot_navigation.models import ekf_slam as ekf
+        from shermbot_navigation.parallel import (
             blocked_ekf, mesh as mesh_lib)
         from jax.sharding import NamedSharding
 
@@ -170,86 +230,107 @@ class TestDeferredGridKernelPath:
         np.testing.assert_allclose(a.cov_mm, b.cov_mm, atol=1e-4)
 
 
-class TestProductionRouting:
-    """The production entry points route through the kernels (VERDICT round
-    1: 'shelf-ware' kernels must be the shipped path): same results as the
-    XLA schedules, exercised via interpret mode on CPU."""
 
-    def test_fit_circles_kernel_path_matches_xla(self):
-        from shermbot_navigation_tpu.ops.clustering import Clusters
-        from shermbot_navigation_tpu.ops import circle_fit
 
-        rng = np.random.default_rng(5)
-        C, P = 16, 64
-        pts = np.zeros((C, P, 2), np.float32)
-        counts = rng.integers(4, P, C).astype(np.int32)
-        for c in range(C):
-            th = rng.uniform(0, 2 * np.pi, counts[c])
-            r = 0.04 + rng.normal(0, 1e-3, counts[c])
-            ctr = rng.uniform(-1, 1, 2)
-            pts[c, :counts[c], 0] = ctr[0] + r * np.cos(th)
-            pts[c, :counts[c], 1] = ctr[1] + r * np.sin(th)
-        cl = Clusters(points=jnp.asarray(pts), counts=jnp.asarray(counts),
-                      valid=jnp.ones((C,), bool))
-        xla = circle_fit.fit_circles(cl, use_pallas=False)
-        ker = circle_fit.fit_circles(cl, use_pallas=True, interpret=True)
-        np.testing.assert_array_equal(np.asarray(xla.valid),
-                                      np.asarray(ker.valid))
-        np.testing.assert_allclose(xla.center, ker.center, atol=1e-4)
-        np.testing.assert_allclose(xla.radius, ker.radius, atol=1e-4)
+class _StubMesh:
+    """Just enough of a ``Mesh`` for the routing functions: its devices'
+    platform and its axis sizes."""
 
-    def test_golden_vector_through_kernel_path(self):
-        """The reference's canonical 6-point fixture survives the Pallas
-        front end (ref nuslam/tests/circle_tests.cpp:38-40)."""
-        from shermbot_navigation_tpu.ops.clustering import Clusters
-        from shermbot_navigation_tpu.ops import circle_fit
+    def __init__(self, platform, data=1, map_=1):
+        dev = type("Dev", (), {"platform": platform})()
+        self.devices = np.array([dev], dtype=object)
+        self.shape = {"data": data, "map": map_}
 
-        pts = np.zeros((8, 8, 2), np.float32)
-        pts[0, :6] = [[1, 7], [2, 6], [5, 8], [7, 7], [9, 5], [3, 7]]
-        cl = Clusters(points=jnp.asarray(pts),
-                      counts=jnp.asarray([6, 0, 0, 0, 0, 0, 0, 0]),
-                      valid=jnp.asarray([True] + [False] * 7))
-        out = circle_fit.fit_circles(cl, use_pallas=True, interpret=True)
-        np.testing.assert_allclose(np.asarray(out.center[0]),
-                                   [4.615482, 2.807354], atol=2e-3)
-        # the fixture's "radius" is the marker scale = 2*radius quirk
-        # (test_perception.py:21-23)
-        np.testing.assert_allclose(float(out.radius[0]), 4.827575, atol=2e-3)
 
-    def test_ekf_update_kernel_path_matches_xla(self):
-        """A padded, kernel-routed EKF trajectory equals the exact-size XLA
-        trajectory on the logical slots — pins both the pad_state_to
-        plumbing (padded slots inert) and the fused-update routing."""
-        from shermbot_navigation_tpu.models import ekf_slam as ekf
+class TestKernelRouting:
+    """``bigmap._resolve_*``: kernels on a GPU for the shapes they take, the
+    XLA schedule on the CPU, an error on a platform the code does not
+    know; an explicit request is passed through unchanged."""
 
-        N = 6
-        rng = np.random.default_rng(9)
-        Q = jnp.diag(jnp.array([1e-3] * 3, jnp.float32))
-        R = jnp.diag(jnp.array([1e-3] * 2, jnp.float32))
-        T, M = 5, 3
-        twists = jnp.asarray(rng.uniform(-0.05, 0.05, (T, 3)), jnp.float32)
-        zs = jnp.asarray(np.stack([rng.uniform(0.3, 1.0, (T, M)),
-                                   rng.uniform(-3, 3, (T, M))], axis=-1),
-                         jnp.float32)
-        valid = jnp.ones((T, M), bool)
-        ids = jnp.asarray(
-            [[(t + k) % N for k in range(M)] for t in range(T)], jnp.int32)
+    @pytest.mark.parametrize("platform,want", [("gpu", True),
+                                               ("cpu", False)])
+    def test_kernel_platform(self, platform, want):
+        from shermbot_navigation.parallel import bigmap
+        assert bigmap.kernel_platform(_StubMesh(platform)) is want
 
-        cfg_xla = ekf.EKFConfig(num_landmarks=N)
-        cfg_ker = ekf.EKFConfig(num_landmarks=N, pad_state_to=128,
-                                pallas_update="on")
-        states = []
-        for cfg in (cfg_xla, cfg_ker):
-            st = ekf.init(cfg, jnp.zeros(3, jnp.float32))
-            for t in range(T):
-                st = ekf.known_association_step(
-                    cfg, st, twists[t], zs[t], valid[t], ids[t], Q, R)
-            states.append(st)
-        a, b = states
-        D = 3 + 2 * N
-        assert b.mean.shape[0] == 128
-        np.testing.assert_allclose(a.mean, b.mean[:D], atol=1e-5)
-        np.testing.assert_allclose(a.cov, b.cov[:D, :D], atol=1e-4)
-        # padded tail stayed inert
-        np.testing.assert_allclose(np.asarray(b.mean[D:]), 0.0, atol=0)
-        np.testing.assert_allclose(np.asarray(b.cov[D:, :]), 0.0, atol=0)
+    @pytest.mark.parametrize("platform", ["rocm", "metal", "neuron"])
+    def test_unknown_platform_raises(self, platform):
+        from shermbot_navigation.models.ekf_slam import EKFConfig
+        from shermbot_navigation.parallel import bigmap
+        mesh = _StubMesh(platform)
+        with pytest.raises(ValueError, match="no kernel routing"):
+            bigmap._resolve_grid_kernel(None, EKFConfig(num_landmarks=2048),
+                                        mesh, jnp.float32)
+
+    @pytest.mark.parametrize("N,map_,dtype,want", [
+        (8192, 1, jnp.float32, True),
+        (16384, 1, jnp.float32, True),
+        (2048, 1, jnp.float32, False),      # below GRID_KERNEL_MIN_N
+        (10000, 1, jnp.float32, False),     # not a power of two
+        (8192, 2, jnp.float32, False),      # multi-shard: XLA schedule
+        (8192, 1, jnp.float64, False),      # f64: XLA schedule
+    ])
+    def test_grid_auto_route_on_gpu(self, N, map_, dtype, want):
+        from shermbot_navigation.models.ekf_slam import EKFConfig
+        from shermbot_navigation.parallel import bigmap
+        got = bigmap._resolve_grid_kernel(
+            None, EKFConfig(num_landmarks=N), _StubMesh("gpu", map_=map_),
+            dtype)
+        assert got is want
+
+    def test_cpu_auto_routes_xla_and_explicit_passes_through(self):
+        from shermbot_navigation.models.ekf_slam import EKFConfig
+        from shermbot_navigation.parallel import bigmap
+        cfg = EKFConfig(num_landmarks=2048)
+        cpu = _StubMesh("cpu")
+        assert bigmap._resolve_grid_kernel(None, cfg, cpu, jnp.float32) \
+            is False
+        assert bigmap._resolve_grid_kernel(True, cfg, cpu, jnp.float32)
+        assert not bigmap._resolve_grid_kernel(False, cfg, _StubMesh("gpu"),
+                                               jnp.float32)
+
+    def test_kernel_on_unsupported_map_raises(self):
+        """Asking for a kernel on a map it does not take is an error in
+        the step builder, not a quiet switch to the XLA schedule."""
+        from shermbot_navigation.models.ekf_slam import EKFConfig
+        from shermbot_navigation.parallel import blocked_ekf
+        from shermbot_navigation.parallel import mesh as mesh_lib
+        mesh = mesh_lib.make_mesh(jax.devices()[:1], data=1)
+        cfg = EKFConfig(num_landmarks=48)
+        with pytest.raises(ValueError, match="grid_kernel"):
+            blocked_ekf.make_sharded_deferred_step(cfg, mesh, 1, 4,
+                                                   grid_kernel=True)
+        with pytest.raises(ValueError, match="grid_kernel"):
+            blocked_ekf.make_sharded_deferred_unknown_step(
+                cfg, mesh, 1, 4, grid_kernel=True)
+
+
+@pytest.mark.gpu
+def test_compiled_kernels_match_xla_on_gpu(gpu_device):
+    """On the card: the compiled Triton grid kernel against the XLA
+    schedule through the config-4 runners (both association modes)."""
+    from jax.sharding import NamedSharding
+    from shermbot_navigation.models.ekf_slam import EKFConfig
+    from shermbot_navigation.parallel import bigmap, blocked_ekf
+    from shermbot_navigation.parallel.mesh import make_mesh
+
+    N, M, T = 256, 8, 8
+    mesh = make_mesh([gpu_device], data=1)
+    cfg = EKFConfig(num_landmarks=N)
+    wl = bigmap.make_workload(N, T, M, jax.random.PRNGKey(0))
+    Q = jnp.diag(jnp.array([1e-4] * 3, jnp.float32))
+    R = jnp.diag(jnp.array([1e-3] * 2, jnp.float32))
+    specs = blocked_ekf.state_sharding(mesh)
+    for maker in (bigmap.make_runner, bigmap.make_unknown_runner):
+        outs = []
+        for kern in (False, True):
+            st = jax.tree_util.tree_map(
+                lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
+                blocked_ekf.init(cfg, 1), specs)
+            run = maker(cfg, mesh, 1, M, grid_kernel=kern)
+            outs.append(run(st, wl, Q, R, jnp.int32(0), T))
+        a, b = outs
+        np.testing.assert_array_equal(np.asarray(a.n_seen),
+                                      np.asarray(b.n_seen))
+        np.testing.assert_allclose(a.mean_m, b.mean_m, atol=1e-4)
+        np.testing.assert_allclose(a.cov_mm, b.cov_mm, atol=1e-4)

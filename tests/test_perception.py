@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.ops import circle_fit as cf
-from shermbot_navigation_tpu.ops import clustering as cl
-from shermbot_navigation_tpu.ops.landmark_detection import detect_landmarks
+from shermbot_navigation.ops import circle_fit as cf
+from shermbot_navigation.ops import clustering as cl
+from shermbot_navigation.ops.landmark_detection import detect_landmarks
 
 
 class TestCircleFitGolden:
@@ -229,7 +229,7 @@ class TestSegmentedDetect:
     clusters."""
 
     def _ab(self, ranges, min_r=0.05, max_r=1.0):
-        from shermbot_navigation_tpu.ops import landmark_detection as ld
+        from shermbot_navigation.ops import landmark_detection as ld
         a = ld.detect_landmarks(ranges, min_r, max_r, segmented=True)
         b = ld.detect_landmarks(ranges, min_r, max_r, segmented=False)
         np.testing.assert_array_equal(np.asarray(a.valid),
@@ -271,7 +271,7 @@ class TestSegmentedDetect:
         for c in (40, 130, 270):
             span = np.arange(c - 6, c + 7) % 360
             ranges[span] = 0.6 + rng.normal(0, 0.005, 13)
-        from shermbot_navigation_tpu.ops import landmark_detection as ld
+        from shermbot_navigation.ops import landmark_detection as ld
         a = ld.detect_landmarks(jnp.asarray(ranges), 0.05, 1.0,
                                 segmented=True)
         b = ld.detect_landmarks(jnp.asarray(ranges), 0.05, 1.0,

@@ -19,9 +19,9 @@ the engine-vs-engine trajectory parity tests (test_baseline_parity.py).
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.native import host
-from shermbot_navigation_tpu.ops import se2
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.native import host
+from shermbot_navigation.ops import se2
 
 F64 = jnp.float64
 PI = np.pi

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.models import pose_graph as pg
-from shermbot_navigation_tpu.models import schur
-from shermbot_navigation_tpu.ops import se2
+from shermbot_navigation.models import pose_graph as pg
+from shermbot_navigation.models import schur
+from shermbot_navigation.ops import se2
 
 
 def make_loop(T=40, radius=1.0, drift=0.002, seed=0, dtype=jnp.float64):
@@ -141,8 +141,8 @@ def test_optimize_host_matches_jax_dense():
     problem — same residuals, Jacobians, anchor, and gauge projection."""
     import jax.numpy as jnp
     import numpy as np
-    from shermbot_navigation_tpu.models import pose_graph as pg
-    from shermbot_navigation_tpu.parallel import megamap
+    from shermbot_navigation.models import pose_graph as pg
+    from shermbot_navigation.parallel import megamap
 
     prob = megamap.synthesize(64, 24, 4, dtype=jnp.float64)
     a = pg.optimize(prob.graph, iters=6, solve="dense")

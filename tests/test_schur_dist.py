@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from shermbot_navigation_tpu.models import schur
-from shermbot_navigation_tpu.parallel import mesh as mesh_lib
-from shermbot_navigation_tpu.parallel import schur_dist
+from shermbot_navigation.models import schur
+from shermbot_navigation.parallel import mesh as mesh_lib
+from shermbot_navigation.parallel import schur_dist
 
 from test_refinement import TestSchur as _Base
 

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.ops import se2
+from shermbot_navigation.ops import se2
 
 PI = se2.PI
 

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from shermbot_navigation_tpu.models import ekf_slam as ekf
-from shermbot_navigation_tpu.pipeline import serving
+from shermbot_navigation.models import ekf_slam as ekf
+from shermbot_navigation.pipeline import serving
 
 N = 16
 M = 4
@@ -87,8 +87,8 @@ def test_serving_matches_dense(known):
 
 
 def test_serving_kernel_interpret_matches_dense():
-    """The exact kernel-routed code path (seq-scan + grid kernels in
-    interpret mode) through the serving API."""
+    """The exact kernel-routed code path (the grid kernel in interpret
+    mode) through the serving API."""
     dtype = jnp.float32
     cfg = ekf.EKFConfig(num_landmarks=N)
     T = 3
@@ -97,7 +97,6 @@ def test_serving_kernel_interpret_matches_dense():
     srv = serving.state_from_dense(cfg, dense)
     tick = serving.make_serving_step(
         cfg, M, known=True, dtype=dtype, donate=False,
-        seq_kernel=True, seq_interpret=True,
         grid_kernel=True, kernel_interpret=True)
     for t in range(T):
         dense = ekf.known_association_step(

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.sim import tube_world as tw
+from shermbot_navigation.sim import tube_world as tw
 
 
 def mk(dtype=jnp.float64, **over):
@@ -123,7 +123,7 @@ class TestSensors:
 
     def test_perception_closes_loop_with_sim(self):
         """Sim lidar -> detector recovers the tube position."""
-        from shermbot_navigation_tpu.ops.landmark_detection import (
+        from shermbot_navigation.ops.landmark_detection import (
             detect_landmarks)
         cfg, params, st = mk(tube_locs=[[0.4, 0.2], [-0.3, -0.5]])
         obs = tw.observe(cfg, params, st, jax.random.PRNGKey(0))

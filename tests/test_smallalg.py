@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from shermbot_navigation_tpu.ops import smallalg
+from shermbot_navigation.ops import smallalg
 
 
 def rand_spd(rng, n, batch=()):

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from shermbot_navigation_tpu.pipeline import staged
-from shermbot_navigation_tpu.pipeline.config import get_scenario
+from shermbot_navigation.pipeline import staged
+from shermbot_navigation.pipeline.config import get_scenario
 
 
 @pytest.mark.parametrize("scenario", ["lidar20_full", "loop5_known"])
